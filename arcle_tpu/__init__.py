@@ -1,11 +1,13 @@
-"""arcle-tpu: a TPU-native ARC Learning Environment framework.
+"""arcle-tpu: a batched JAX ARC Learning Environment framework.
 
 A from-scratch JAX/XLA re-design of the capabilities of ConfeitoHS/arcle
 (reference mounted at /root/reference): the Gymnasium grid-editing
 environments (RawARCEnv, ARCEnv, O2ARCv2Env), dataset loaders, action-space
 wrappers and the meta-RL training stack, rebuilt as a pure-functional,
 batched, jit-compiled engine that steps thousands of environment instances
-in lockstep on TPU and feeds sharded PPO / E-MAML learners via collectives.
+in lockstep on a GPU and feeds sharded PPO / E-MAML learners via
+collectives.  The Gymnasium adapters need the ``gym`` extra; the
+transformer policies need the ``flax`` extra.
 
 Layout
 ------

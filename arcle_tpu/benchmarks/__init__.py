@@ -3,8 +3,8 @@
 The reference repo ships no benchmark code; its published numbers live in
 the CoLLAs 2024 paper (/root/reference/arcle_paper.pdf §4.1) and are the
 headline baselines recorded in BASELINE.md.  This package implements those
-experiment setups TPU-first so the framework can be measured against the
-paper's results directly.
+experiment setups on the batched engine so the framework can be measured
+against the paper's results directly.
 """
 
 from .answer_given import (  # noqa: F401

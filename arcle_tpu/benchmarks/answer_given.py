@@ -29,7 +29,7 @@ driver is :mod:`arcle_tpu.training.train_answer_given`.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import TYPE_CHECKING, List, Optional
 
 import jax
 import jax.numpy as jnp
@@ -40,10 +40,13 @@ from ..envs.core import BatchedEnv, ResetOptions
 from ..loaders.loader import Loader, TaskTuple
 from ..loaders.synthetic import make_tasks
 from ..models import bbox_dist
-from ..models.gpt import GPTPolicy, GPTConfig
+from ..models.gpt_config import GPTConfig
 from ..ops.groups import G
-from ..ops.table import OpTable
+from ..ops.table import OpTable, exact_ratio
 from ..training.agents import Agent
+
+if TYPE_CHECKING:   # the transformer needs flax; the env does not
+    from ..models.gpt import GPTPolicy
 
 
 # ---------------------------------------------------------------------------
@@ -131,14 +134,10 @@ def answer_given_env(n_tasks: int = 16384, h: int = 5, w: int = 5,
                      colors: int = 10, seed: int = 0,
                      episode_limit: int = 50,
                      setting: str = "random",
-                     loader: Optional[Loader] = None,
-                     use_pallas: bool = False) -> BatchedEnv:
+                     loader: Optional[Loader] = None) -> BatchedEnv:
     """Batched lockstep env for the §4.1 setting.
 
     ``setting``: "random" (uniform grids) or "arc" (ARC-like tasks <=5x5).
-    ``use_pallas`` routes the step through the geometry-parametrized VMEM
-    megakernel (5x5 instantiation); pick it with the measured
-    ``benchmarks.roofline.pick_engine``.
     """
     if loader is None:
         if setting == "random":
@@ -154,7 +153,6 @@ def answer_given_env(n_tasks: int = 16384, h: int = 5, w: int = 5,
         episode_limit=episode_limit, auto_reset=True,
         pixel_reward=True, terminate_on_match=True,
         opts=ResetOptions.make(adaptation=True),
-        use_pallas=use_pallas,
     )
 
 
@@ -177,21 +175,20 @@ def answer_obs(state: EnvState) -> jax.Array:
 def shaping_potential(obs: jax.Array, h: int, w: int) -> jax.Array:
     """phi(s) = -(wrong cells inside ``answer_dim``)/(answer area) read
     straight off the flat answer-given observation (any leading batch
-    dims).  By construction this equals :func:`arcle_tpu.ops.table
-    .pixel_reward` of the same state, so the driver's potential-based
-    shaping (phi(s_{t+1}) == r_t) is exactly policy-invariant in the ARC
-    setting too, where dims can be smaller than ``h x w``."""
+    dims).  Computed like :func:`arcle_tpu.ops.table.pixel_reward`, in
+    integers and :func:`~arcle_tpu.ops.table.exact_ratio`, it equals that
+    reward of the same state bit for bit on every backend, so the
+    driver's potential-based shaping (phi(s_{t+1}) == r_t) is exactly
+    policy-invariant in the ARC setting too, where dims can be smaller
+    than ``h x w``."""
     P = h * w
     g = obs[..., :P]
     a = obs[..., P + 2:2 * P + 2]
-    ad = obs[..., 2 * P + 2:2 * P + 4]
-    idx = jnp.arange(P, dtype=jnp.float32)
-    r_idx = jnp.floor(idx / w)
-    c_idx = idx - r_idx * w
-    inside = (r_idx < ad[..., :1]) & (c_idx < ad[..., 1:2])
-    wrong = jnp.where(inside, g != a, False).sum(-1).astype(jnp.float32)
-    area = jnp.maximum(ad[..., 0] * ad[..., 1], 1.0)
-    return -wrong / area
+    ad = obs[..., 2 * P + 2:2 * P + 4].astype(jnp.int32)
+    idx = jnp.arange(P, dtype=jnp.int32)
+    inside = (idx // w < ad[..., :1]) & (idx % w < ad[..., 1:2])
+    wrong = jnp.where(inside, g != a, False).sum(-1).astype(jnp.int32)
+    return -exact_ratio(wrong, ad[..., 0] * ad[..., 1])
 
 
 def _unpack(obs: jax.Array, h: int, w: int):
@@ -227,6 +224,7 @@ def make_policy(h: int = 5, w: int = 5, colors: int = 10,
                     color_equivariant=color_equivariant,
                     bbox_bins=(max(h, w)
                                if bbox_dist_kind == "categorical" else 0))
+    from ..models.gpt import GPTPolicy
     return GPTPolicy(cfg)
 
 

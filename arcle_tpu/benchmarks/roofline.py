@@ -1,91 +1,82 @@
 """Roofline accounting: bytes/step and FLOPs/step next to steps/s.
 
 Answers "is N steps/s good?" by putting the measured rate against the
-chip's peak HBM bandwidth and MXU throughput (the engine's whole-step
-kernels are bandwidth-bound by design — ops/pallas_step.py docstring).
+card's peak memory bandwidth and bf16 tensor-core throughput.  The bytes
+and FLOPs come from XLA's own cost model of the compiled program
+(``cost_from_compiled``: ``flops`` / ``bytes accessed``).
 
-Two sources, both reported:
-
-* ``cost_from_compiled`` — XLA's own cost model for a compiled program
-  (``flops`` / ``bytes accessed``).  For programs containing Pallas
-  custom calls XLA counts only the operand/result traffic at the call
-  boundary and no FLOPs inside the kernel, which is in fact the right
-  number for HBM accounting (VMEM-resident work never touches HBM).
-* ``pallas_step_bytes`` — the analytic per-step HBM traffic of the
-  megakernel (operands in + results out), as a cross-check.
-
-Peaks are per device kind; the v5e numbers are the published
-per-chip specs (197 bf16 TFLOP/s, 819 GB/s HBM BW).
+Peaks are keyed by ``device_kind`` (the name JAX reports) and carry their
+source.  A device that is not in the table is an error, not a default:
+a share of a guessed peak is no measurement.  The published peaks assume
+the card's full power limit, so every share is reported beside the
+card's name and power limit as ``nvidia-smi`` reads them.
 """
 
 from __future__ import annotations
 
+import subprocess
 from typing import Dict, Optional
 
-# per-chip peaks: bf16 matmul TFLOP/s, HBM GB/s
-PEAKS: Dict[str, Dict[str, float]] = {
-    "v5e": {"bf16_tflops": 197.0, "hbm_gbps": 819.0},
-    "v5litepod": {"bf16_tflops": 197.0, "hbm_gbps": 819.0},
-    "v5p": {"bf16_tflops": 459.0, "hbm_gbps": 2765.0},
-    "v4": {"bf16_tflops": 275.0, "hbm_gbps": 1228.0},
-    "v6e": {"bf16_tflops": 918.0, "hbm_gbps": 1640.0},
-    "cpu": {"bf16_tflops": 1.0, "hbm_gbps": 50.0},  # nominal host
+# per-device peaks: dense bf16 tensor-core TFLOP/s, device-memory GB/s
+PEAKS: Dict[str, Dict[str, object]] = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16_tflops": 989.0, "hbm_gbps": 3350.0,
+        "source": "NVIDIA H100 data sheet, SXM5, dense (no sparsity), "
+                  "at the 700 W power limit",
+    },
 }
 
 
-def device_peaks(device=None) -> Dict[str, float]:
-    import jax
-    d = device or jax.devices()[0]
-    kind = (getattr(d, "device_kind", "") or d.platform).lower()
-    for key, peaks in PEAKS.items():
-        if key in kind.replace(" ", "").replace("tpu", ""):
-            return dict(peaks, kind=kind)
-    if d.platform == "tpu":           # unknown TPU: assume v5e-class
-        return dict(PEAKS["v5e"], kind=kind)
-    return dict(PEAKS["cpu"], kind=kind)
+def device_peaks(device=None) -> Dict[str, object]:
+    """Peaks of ``device`` (default: the first JAX device); raises
+    KeyError for a device kind the table does not hold."""
+    if device is None:
+        import jax
+        device = jax.devices()[0]
+    kind = getattr(device, "device_kind", "") or device.platform
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}; "
+                       f"add a row to roofline.PEAKS with its source")
+    return dict(PEAKS[kind], kind=kind)
+
+
+def card_name_and_power_limit() -> str:
+    """``nvidia-smi``'s name and power limit of the cards, one line each
+    (what every measured share is reported beside)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
 
 
 def cost_from_compiled(compiled) -> Optional[Dict[str, float]]:
     """(flops, bytes accessed) from XLA's cost analysis of a compiled
     program; None when the backend doesn't expose it."""
-    try:
-        ca = compiled.cost_analysis()
-        if isinstance(ca, (list, tuple)):
-            ca = ca[0]
-        return {"flops": float(ca.get("flops", 0.0)),
-                "bytes": float(ca.get("bytes accessed", 0.0))}
-    except Exception:
+    ca = compiled.cost_analysis()
+    if isinstance(ca, (list, tuple)):
+        ca = ca[0] if ca else None
+    if not ca:
         return None
-
-
-def pallas_step_bytes(table, batch: int, blk: int = 64) -> float:
-    """Analytic HBM bytes *per env-step* on the Pallas path: one read
-    of the 9 grid operands + packed scalars, one write of the 6 grid
-    results + scalars, plus the two 900x900 bf16 permutation matrices
-    re-streamed per 64-env block for object-op tables (ops/pallas_step
-    .py) — an upper bound; XLA's own accounting counts the matrices
-    once per call, a lower bound.  Logical bytes — physical tile
-    padding (900->1024 lanes, ~1.14x) is ignored at this precision."""
-    from ..ops.groups import G
-    p = 900
-    in_bytes = batch * (9 * p + 20 * 4)
-    out_bytes = batch * (6 * p + 15 * 4)
-    perm_bytes = 0
-    if G.OBJECT in table.group:
-        perm_bytes = 2 * p * p * 2 * (max(batch // blk, 1))
-    return float(in_bytes + out_bytes + perm_bytes) / batch
+    return {"flops": float(ca.get("flops", 0.0)),
+            "bytes": float(ca.get("bytes accessed", 0.0))}
 
 
 def summarize(rate_steps_per_s: float, batch: int, steps: int,
-              cost: Optional[Dict[str, float]],
-              analytic_bytes_per_step: Optional[float] = None,
-              device=None) -> Dict[str, float]:
-    """Utilization block for a measured rollout rate.
+              cost: Optional[Dict[str, float]], kind: str,
+              card: str = "") -> Dict[str, object]:
+    """Utilization block for a measured rollout rate on a device of
+    ``kind`` (a ``PEAKS`` key).
 
     ``cost`` is the whole-rollout XLA cost analysis (``steps`` env
-    steps at ``batch`` envs); rates are normalized per env-step."""
-    peaks = device_peaks(device)
-    out = {"device_kind": peaks.pop("kind")}
+    steps at ``batch`` envs); rates are normalized per env-step.
+    ``card`` is the card's name and power limit as ``nvidia-smi`` reads
+    them, written beside the shares."""
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}")
+    peaks = PEAKS[kind]
+    out: Dict[str, object] = {"device_kind": kind, "card": card,
+                              "peaks_source": peaks["source"]}
     n_env_steps = batch * steps
     if cost and cost["bytes"] > 0:
         bytes_per_step = cost["bytes"] / n_env_steps
@@ -99,97 +90,4 @@ def summarize(rate_steps_per_s: float, batch: int, steps: int,
         out["mfu_pct"] = round(
             100.0 * flops_per_step * rate_steps_per_s
             / (peaks["bf16_tflops"] * 1e12), 3)
-    if analytic_bytes_per_step is not None:
-        out["analytic_bytes_per_env_step"] = round(
-            analytic_bytes_per_step, 1)
-        out["analytic_hbm_util_pct"] = round(
-            100.0 * analytic_bytes_per_step * rate_steps_per_s
-            / (peaks["hbm_gbps"] * 1e9), 2)
     return out
-
-
-_PICK_CACHE: Dict[tuple, bool] = {}
-
-
-def pick_engine(env_builder, batch: int, steps: int = 20,
-                key_seed: int = 0) -> bool:
-    """Measured per-(table, batch) engine choice: time a short random
-    rollout on both the Pallas and XLA paths and return use_pallas for
-    the faster one.  Replaces the round-3 batch-size heuristic, which
-    mispicked in measured cases (raw@256: XLA 667k vs Pallas 504k while
-    the heuristic said Pallas).  ``env_builder(use_pallas)`` must return
-    a fresh BatchedEnv.  Results are cached per (table name, batch)."""
-    import time
-
-    import jax
-    import jax.numpy as jnp
-
-    from ..core.state import Action
-    from ..core.geometry import bbox_selection, bbox_selection_flat
-    from ..envs.core import flatten_grids, unflatten_grids
-
-    env_probe = env_builder(False)
-    cache_key = (env_probe.table.name, batch)
-    if cache_key in _PICK_CACHE:
-        return _PICK_CACHE[cache_key]
-    if jax.devices()[0].platform != "tpu":
-        # (no batch-divisibility gate: the kernel pads partial blocks)
-        _PICK_CACHE[cache_key] = False
-        return False
-
-    H, W = env_probe.bank.in_grids.shape[-2:]
-
-    def timed(use_pallas: bool) -> float:
-        env = env_builder(use_pallas)
-
-        def rollout(env, bs, key):
-            def body(carry, _):
-                bs_flat, key = carry
-                key, k1, k2 = jax.random.split(key, 3)
-                c = jax.random.randint(k1, (4, batch), 0, H)
-                ops = jax.random.randint(k2, (batch,), 0, env.table.n_ops)
-                if use_pallas:
-                    sels = jax.vmap(bbox_selection_flat,
-                                    in_axes=(0, 0, 0, 0, None, None))(
-                        c[0], c[1], c[2], c[3], H, W)
-                    bs_flat, _o, rew, *_ = env.step_flat(
-                        bs_flat, Action(selection=sels, operation=ops))
-                else:
-                    sels = jax.vmap(bbox_selection,
-                                    in_axes=(0, 0, 0, 0, None, None))(
-                        c[0], c[1], c[2], c[3], H, W)
-                    b = unflatten_grids(bs_flat, H, W)
-                    b, _o, rew, *_ = env.step(
-                        b, Action(selection=sels, operation=ops))
-                    bs_flat = flatten_grids(b, H, W)
-                return (bs_flat, key), rew.sum()
-
-            (bs_flat, _), rews = jax.lax.scan(
-                body, (flatten_grids(bs, H, W), key), None, length=steps)
-            return jnp.sum(unflatten_grids(bs_flat, H, W).env.steps) + \
-                rews.sum().astype(jnp.int32)
-
-        key = jax.random.key(key_seed)
-        bs = env.reset(key, batch)
-        rj = jax.jit(rollout)
-        _ = int(rj(env, bs, key))            # compile + warm
-        best = float("inf")
-        for _i in range(2):
-            t0 = time.perf_counter()
-            _ = int(rj(env, bs, key))
-            best = min(best, time.perf_counter() - t0)
-        return best
-
-    t_xla = timed(False)
-    try:
-        t_pal = timed(True)
-    except Exception as e:
-        # a kernel that fails to compile at this geometry (e.g. scoped-
-        # VMEM overflow) must demote to the XLA path, not kill the
-        # caller — the driver's benchmark artifact depends on this probe
-        print(f"pick_engine: pallas probe failed ({str(e).splitlines()[0][:120]}); "
-              "using XLA", flush=True)
-        t_pal = float("inf")
-    use = t_pal < t_xla
-    _PICK_CACHE[cache_key] = use
-    return use

@@ -6,7 +6,7 @@ recursion limit at ~900 cells and is unvectorizable.  The result of a flood
 fill is a *set* (the connected component of the seed), so visit order is
 irrelevant — any fixpoint computation of the same component is bit-exact.
 
-Kernel design (TPU-first): instead of one-cell-per-iteration BFS frontier
+Kernel design: instead of one-cell-per-iteration BFS frontier
 expansion (worst case ~900 iterations), we propagate along entire rows and
 columns per iteration using log-depth associative scans:
 
@@ -45,8 +45,8 @@ def _propagate_axis(mask: jax.Array, region: jax.Array, axis: int) -> jax.Array:
     runs are maximal stretches of ``region``; a cell is reached if any
     seed lies in its run before (after) it.  With run ids from a cumsum
     of ``~region``, a single ``cummax`` of ``seed ? run_id : -1`` gives
-    the forward pass (native TPU cumulative ops — cheaper than the
-    log-depth associative scan over (any, region) pairs).
+    the forward pass (a cumulative op in place of the log-depth
+    associative scan over (any, region) pairs).
     """
     seed = mask & region
     run_id = jnp.cumsum((~region).astype(jnp.int32), axis=axis)

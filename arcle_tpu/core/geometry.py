@@ -62,14 +62,12 @@ def bbox(mask: jax.Array) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array, j
 
 
 def dyn_roll(a: jax.Array, shift: jax.Array, axis: int) -> jax.Array:
-    """Circular shift by a *traced* per-call amount, TPU-fast.
+    """Circular shift by a *traced* per-call amount, without a gather.
 
-    ``jnp.roll`` with a traced shift lowers to an elementwise gather —
-    catastrophically slow on TPU (~100x) for batched small grids.  Binary
-    decomposition turns it into ceil(log2(n)) conditional *static* rolls,
-    which XLA fuses into a single cheap vector pass (measured ~0.05 ms for
-    ten chained 2-D rolls over (30,30,4096) int8 vs ~6 ms for one gather
-    roll).
+    ``jnp.roll`` with a traced shift lowers to an elementwise gather.
+    Binary decomposition turns it into ceil(log2(n)) conditional *static*
+    rolls, which XLA fuses into one elementwise pass.  Which form is
+    faster on the GPU is not measured yet.
     """
     n = a.shape[axis]
     shift = jnp.mod(jnp.asarray(shift, I32), n)
@@ -131,26 +129,8 @@ def bbox_selection(x1, y1, x2, y2, H: int, W: int) -> jax.Array:
     return m.astype(jnp.int8)
 
 
-def bbox_selection_flat(x1, y1, x2, y2, H: int, W: int) -> jax.Array:
-    """Rectangular selection as a flat [H*W] int8 mask (pallas flat path)."""
-    x1, y1, x2, y2 = (jnp.asarray(v, I32) for v in (x1, y1, x2, y2))
-    xa, xb = jnp.minimum(x1, x2), jnp.maximum(x1, x2)
-    ya, yb = jnp.minimum(y1, y2), jnp.maximum(y1, y2)
-    lane = jax.lax.broadcasted_iota(I32, (H * W, 1), 0).squeeze(-1)
-    r, c = lane // W, lane % W
-    m = (r >= xa) & (r <= xb) & (c >= ya) & (c <= yb)
-    return m.astype(jnp.int8)
-
-
 def point_selection(x, y, H: int, W: int) -> jax.Array:
     """One-pixel selection mask (wrappers/bbox.py:43-49)."""
     rows, cols = row_col_iota(H, W)
     m = (rows == jnp.asarray(x, I32)) & (cols == jnp.asarray(y, I32))
-    return m.astype(jnp.int8)
-
-
-def point_selection_flat(x, y, H: int, W: int) -> jax.Array:
-    """One-pixel selection as a flat [H*W] int8 mask (pallas flat path)."""
-    lane = jax.lax.broadcasted_iota(I32, (H * W, 1), 0).squeeze(-1)
-    m = lane == jnp.asarray(x, I32) * W + jnp.asarray(y, I32)
     return m.astype(jnp.int8)

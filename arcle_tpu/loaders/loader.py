@@ -2,7 +2,7 @@
 
 The reference's ``Loader`` ABC (``/root/reference/arcle/loaders/loader.py:8-57``)
 parses ARC-format JSON into per-task lists of numpy grids and samples tasks
-host-side with ``pick()``.  The TPU-native design keeps that seam (so users
+host-side with ``pick()``.  The batched design keeps that seam (so users
 can inject datasets exactly as before, cf. the TestLoader pattern in the
 reference's tests/o2arcex.py:10-21) but adds :class:`TaskBank`: every pair
 of every task padded into fixed ``[P, H, W] int8`` device arrays with

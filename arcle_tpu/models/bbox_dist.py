@@ -8,11 +8,11 @@ coordinates conditioned on the *chosen* op's head output
 coordinates are scaled by the grid size and floored to ints, and ``log_prob``
 recomputes both terms from stored integer actions (bboxdist.py:51-60).
 
-TPU-first formulation: the bbox heads are applied to *all* op tokens up
+Batched formulation: the bbox heads are applied to *all* op tokens up
 front (one batched matmul, ``bbox_mean_all``/``bbox_std_all`` in
 GPTPolicy's output) and the chosen op's row is selected with one-hot
-arithmetic — batched 1-element gathers are pathologically slow on this
-runtime, a compare+einsum fuses into the surrounding pass.
+arithmetic — a compare+einsum that fuses into the surrounding pass in
+place of a batched 1-element gather.
 
 This module is the single source of truth for the distribution math; the
 training agents (training/agents.py) call these functions directly.
@@ -38,8 +38,7 @@ class OpBBoxSample(NamedTuple):
 
 def select_op(per_op: jax.Array, operation: jax.Array) -> jax.Array:
     """Select ``per_op[..., operation, :]`` -> [..., D] without a gather:
-    one-hot compare + einsum (fast on TPU, where 1-element gathers are
-    scalarized)."""
+    one-hot compare + einsum."""
     n = per_op.shape[-2]
     classes = jax.lax.broadcasted_iota(jnp.int32, (n,), 0)
     oh = (operation[..., None] == classes).astype(per_op.dtype)
@@ -128,7 +127,7 @@ def entropy(op_logits: jax.Array, mean_all: jax.Array, std_all: jax.Array,
 # Discrete selection head (categorical per bbox coordinate)
 #
 # For small grids (the §4.1 answer-given benchmark at 5x5) a categorical
-# over the grid_size bins per coordinate is the TPU-native selection head:
+# over the grid_size bins per coordinate is the batched selection head:
 # exact log-probs/entropy, no quantization mismatch, and exploration that
 # sharpens without collapsing below the entropy bonus.  Same autoregressive
 # structure as AROPandBBox: op ~ Categorical, then the chosen op token's

@@ -1,6 +1,6 @@
 """Native (C++) host-side components, loaded via ctypes.
 
-The compute path is JAX/XLA/Pallas; these are the host-runtime pieces
+The compute path is JAX/XLA; these are the host-runtime pieces
 (data baking) in C++ with lazy in-tree builds and pure-Python fallbacks.
 """
 

@@ -2,7 +2,7 @@
 //
 // The reference's loaders are pure Python (SURVEY.md §2.6 records zero
 // native code in the reference); this is the one genuinely host-bound hot
-// path of the TPU framework — parsing hundreds of JSON task files and
+// path of the framework — parsing hundreds of JSON task files and
 // packing every train/test pair into fixed [P, 30, 30] int8 grids — so it
 // gets a C++ implementation (~6x the Python json path end-to-end), exposed
 // through

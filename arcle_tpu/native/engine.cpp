@@ -1,10 +1,9 @@
 // Native single-env engine: the full table-driven ARCLE transition in C++.
 //
-// The batched compute path is JAX/XLA/Pallas; this engine serves the
+// The batched compute path is JAX/XLA; this engine serves the
 // *interactive* B=1 surface (the gym adapters), where per-step device
-// dispatch dominates and a host-native step is orders of magnitude
-// faster than both the TPU round-trip and the reference's NumPy
-// implementation.  Semantics are a transcription of the validated NumPy
+// dispatch dominates and a host-native step beats both a device
+// round-trip and the reference's NumPy implementation.  Semantics are a transcription of the validated NumPy
 // oracle (arcle_tpu/oracle/oracle_env.py), which is itself fuzzed against
 // the executed reference package (tests/test_oracle_vs_reference.py);
 // this engine is fuzzed against the oracle in tests/test_native.py.

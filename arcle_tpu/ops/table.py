@@ -220,7 +220,7 @@ def finish_flood(state: EnvState, action: Action, table: OpTable,
 
 
 def transition(state: EnvState, action: Action, table: OpTable) -> EnvState:
-    """Pure single-env transition: the TPU counterpart of the reference's
+    """Pure single-env transition: the functional counterpart of the reference's
     ``transition(state, action)`` hook (o2arcenv.py:149-151).  Flood fill
     is completed inline (scalar ``cond`` — executes the fixpoint loop only
     when actually needed; note that under ``vmap`` the cond becomes a
@@ -299,19 +299,52 @@ def answers_match_any(state: EnvState, w: int = 30) -> jax.Array:
     return dims_eq & content_eq
 
 
+def exact_ratio(num: jax.Array, den: jax.Array) -> jax.Array:
+    """``num / den`` as the correctly rounded float32, for integers
+    ``0 <= num <= den < 2**20``, computed with integer operations only.
+
+    XLA's GPU backend divides float32 with a quotient that may be off by
+    an ulp or two, so a float division gives the GPU and the CPU (and the
+    NumPy reference) different bits.  Here: normalize ``num * 2**s`` into
+    ``[den, 2 * den)``, long-divide 24 mantissa bits plus a guard bit,
+    round to nearest even with the remainder as sticky bit, and assemble
+    the float32 bit pattern."""
+    num = jnp.asarray(num, I32)
+    den = jnp.maximum(jnp.asarray(den, I32), 1)
+    # s = the smallest shift with num << s >= den (num <= den: s <= 20);
+    # num << k < den  <=>  num < ceil(den / 2**k), which cannot overflow
+    s = sum((num < ((den + (1 << k) - 1) >> k)).astype(I32)
+            for k in range(20))
+    r = (num << s) - den                    # quotient in [1, 2): lead bit
+    m = jnp.ones_like(num)
+    for _ in range(23):
+        r = r << 1
+        bit = r >= den
+        r = jnp.where(bit, r - den, r)
+        m = (m << 1) | bit.astype(I32)
+    r = r << 1
+    guard = r >= den
+    sticky = jnp.where(guard, r - den, r) != 0
+    m = m + (guard & (sticky | ((m & 1) == 1))).astype(I32)
+    carry = m >> 24                         # rounding overflowed to 2.0
+    bits = ((127 - s + carry) << 23) | ((m >> carry) & 0x7FFFFF)
+    q = jax.lax.bitcast_convert_type(bits, jnp.float32)
+    return jnp.where(num == 0, jnp.float32(0.0), q)
+
+
 def pixel_reward(state_after: EnvState, w: int = 30) -> jax.Array:
     """The paper's §4.1 dense reward: ``-(incorrect pixels)/(total)``
     within the answer dims, in [-1, 0] ("penalizes the agent by the ratio
     of incorrect pixels of the next state", arcle_paper.pdf §4.1).  Zero
-    exactly when the grid solves the task."""
+    exactly when the grid solves the task; the same bits on every backend
+    (:func:`exact_ratio`)."""
     rows, cols = _grid_rowcol(state_after.grid, w)
     ad = state_after.answer_dim.astype(I32)
     inside = (rows < ad[0]) & (cols < ad[1])
     wrong = jnp.sum(
         jnp.where(inside, state_after.grid != state_after.answer, False)
-    ).astype(jnp.float32)
-    total = jnp.maximum(ad[0] * ad[1], 1).astype(jnp.float32)
-    return -(wrong / total)
+    ).astype(I32)
+    return -exact_ratio(wrong, ad[0] * ad[1])
 
 
 def dense_reward(state_after: EnvState, sparse: jax.Array) -> jax.Array:
@@ -333,12 +366,9 @@ def dense_reward(state_after: EnvState, sparse: jax.Array) -> jax.Array:
         lane = jax.lax.broadcasted_iota(I32, grid.shape, 0)
         rows, cols = lane // 30, lane % 30
     region = (rows < minh) & (cols < minw)
-    correct = jnp.sum(
-        jnp.where(region, grid == answer, False)
-    ).astype(jnp.float32)
-    total = (minh * minw).astype(jnp.float32)
+    correct = jnp.sum(jnp.where(region, grid == answer, False)).astype(I32)
     both = (h <= Ha) == (w <= Wa)
-    pen_a = jnp.abs(Ha * Wa - h * w).astype(jnp.float32)
-    pen_b = (jnp.abs(h - Ha) * minw + jnp.abs(w - Wa) * minh).astype(jnp.float32)
-    total = total + jnp.where(both, pen_a, pen_b)
-    return sparse * 100.0 - 1.0 + correct / total
+    pen_a = jnp.abs(Ha * Wa - h * w)
+    pen_b = jnp.abs(h - Ha) * minw + jnp.abs(w - Wa) * minh
+    total = minh * minw + jnp.where(both, pen_a, pen_b)
+    return sparse * 100.0 - 1.0 + exact_ratio(correct, total)

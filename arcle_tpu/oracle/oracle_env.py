@@ -25,6 +25,37 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 
+# EnvState field -> the oracle state entry it equals after every step
+STATE_FIELDS = (
+    ("trials_remain", lambda o: o["trials_remain"][0]),
+    ("terminated", lambda o: o["terminated"][0]),
+    ("input", lambda o: o["input"]),
+    ("input_dim", lambda o: o["input_dim"]),
+    ("grid", lambda o: o["grid"]),
+    ("grid_dim", lambda o: o["grid_dim"]),
+    ("selected", lambda o: o["selected"]),
+    ("clip", lambda o: o["clip"]),
+    ("clip_dim", lambda o: o["clip_dim"]),
+    ("active", lambda o: o["object_states"]["active"][0]),
+    ("object", lambda o: o["object_states"]["object"]),
+    ("object_sel", lambda o: o["object_states"]["object_sel"]),
+    ("object_dim", lambda o: o["object_states"]["object_dim"]),
+    ("object_pos", lambda o: o["object_states"]["object_pos"]),
+    ("background", lambda o: o["object_states"]["background"]),
+    ("rotation_parity", lambda o: o["object_states"]["rotation_parity"][0]),
+)
+_CORE = ("trials_remain", "terminated", "input", "input_dim", "grid",
+         "grid_dim")
+# the fields each family's observation carries (raw: the core grid state;
+# ARC-27 adds the clipboard; O2ARCv2 adds selection and the object machine)
+FAMILY_FIELDS = {
+    "raw": tuple(f for f in STATE_FIELDS if f[0] in _CORE),
+    "arc": tuple(f for f in STATE_FIELDS
+                 if f[0] in _CORE + ("clip", "clip_dim")),
+    "o2arc": STATE_FIELDS,
+}
+
+
 def new_state(input_grid: np.ndarray, answer: np.ndarray,
               H: int = 30, W: int = 30, max_trial: int = -1,
               reset_on_submit: bool = False) -> Dict:

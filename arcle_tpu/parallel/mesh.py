@@ -2,20 +2,20 @@
 
 The reference's only parallelism is process-level env data-parallelism via
 Ray rollout workers plus a single-GPU learner (SURVEY.md §2.6).  The
-TPU-native equivalents:
+JAX equivalents:
 
 * env-batch **data parallelism**: the lockstep batch axis of
   ``BatchedState`` sharded over the mesh ``data`` axis — stepping is
   embarrassingly parallel, no collectives;
 * learner DP: params replicated, batch sharded; XLA inserts the ``psum``
-  gradient all-reduce over ICI when the jitted train step consumes a
+  gradient all-reduce (NCCL over NVLink) when the jitted train step consumes a
   sharded batch;
 * optional **tensor parallelism** of wide MLP layers over a ``model``
   axis (kernel columns sharded), for policies that outgrow one chip.
 
 Multi-host: initialize with ``jax.distributed.initialize()`` per host and
 build the mesh from ``jax.devices()`` — env stepping needs no cross-host
-communication, gradients ride ICI/DCN through the same jitted step.
+communication, gradients all-reduce through the same jitted step.
 """
 
 from __future__ import annotations

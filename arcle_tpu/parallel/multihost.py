@@ -1,11 +1,11 @@
 """Multi-host (multi-process) scale-out utilities.
 
 The reference's distribution story is Ray actor RPC (SURVEY.md §2.6); the
-TPU-native equivalent is single-controller-per-host JAX: every host calls
+JAX equivalent is single-controller-per-host JAX: every host calls
 :func:`init_multihost`, builds the same global mesh over
 ``jax.devices()``, and materializes its local shard of the env batch —
 stepping needs no cross-host communication at all, and learner gradients
-all-reduce over ICI/DCN through the jitted train step.
+all-reduce through the jitted train step (NCCL between GPUs).
 
 Tested with CPU process fakes in tests/test_multihost.py (2 processes x 4
 virtual devices), per the SURVEY §4 test strategy.
@@ -24,7 +24,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 class MultihostInitTimeout(RuntimeError):
     """A process failed to join the distributed runtime within the
-    timeout — the TPU-era analog of RLlib's unhealthy-worker gating
+    timeout — the analog of RLlib's unhealthy-worker gating
     (reference emaml.py:352-354 healthy_worker_ids)."""
 
 
@@ -37,14 +37,14 @@ def init_multihost(coordinator_address: Optional[str] = None,
     ``jax.distributed.initialize`` blocks forever while any expected
     process is missing; here it runs under a watchdog and raises
     :class:`MultihostInitTimeout` with a diagnosis + restart procedure
-    after ``timeout_s``.  (On TPU pods the no-arg form autodetects
-    coordinator/count/id.)
+    after ``timeout_s``.  Pass the coordinator address, the process count
+    and this process's id explicitly.
 
     Restart procedure on failure: all processes of the job must be
     restarted together — JAX's single-controller model has no elastic
     re-join (unlike Ray's per-worker restart).  Re-launch the job on all
     hosts; env state re-materializes from the seed/options and training
-    state from the latest orbax checkpoint (``--resume``).
+    state from the latest checkpoint (``--resume``).
     """
     err: list = []
 

@@ -19,7 +19,7 @@ Two factories mirror the reference's two training paths:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import jax
 import jax.numpy as jnp
@@ -29,9 +29,11 @@ from ..models.mlp import (
     multi_categorical_entropy, stack_padded_logits,
 )
 from ..models import bbox_dist
-from ..models.gpt import GPTPolicy
 from ..wrappers import flatten_obs, full_flatten_obs, unflatten_full, \
     FULL_OBS_DIM
+
+if TYPE_CHECKING:   # the transformer needs flax; the MLP path does not
+    from ..models.gpt import GPTPolicy
 
 
 @dataclasses.dataclass(frozen=True)

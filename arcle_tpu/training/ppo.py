@@ -1,11 +1,11 @@
-"""PPO learner (flax/optax), sharded-data-parallel ready.
+"""PPO learner (optax), sharded-data-parallel ready.
 
 The loss mirrors the reference's functional ``PPOLoss``
 (/root/reference/agents/emaml_policy.py:38-99): clipped surrogate +
 clipped value loss + entropy bonus + KL penalty against the behavior
 policy.  Gradient sync across a device mesh happens automatically when the
 train step is jitted with the batch sharded and params replicated — the
-TPU counterpart of the reference's single-GPU learn_on_batch.
+batched counterpart of the reference's single-GPU learn_on_batch.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Driver for the paper §4.1 answer-given benchmark.
 
 Reproduces the reference's published headline experiments
-(arcle_paper.pdf §4.1.1-§4.1.3, the baselines recorded in BASELINE.md) on
-TPU: PPO over thousands of lockstep 5x5 answer-given envs, with the
+(arcle_paper.pdf §4.1.1-§4.1.3, the baselines recorded in BASELINE.md):
+PPO over thousands of lockstep 5x5 answer-given envs, with the
 color-equivariant policy and the three auxiliary losses.
 
 Experiment cells::
@@ -42,25 +42,15 @@ from ..utils.checkpoint import Checkpointer
 from ..utils.metrics import MetricLogger, Throughput
 from .ppo import PPOConfig, batch_from_trajectory, make_optimizer, train_step
 from .rollout import rollout
-from .train import enable_compile_cache, _key_data, _wrap_key
+from ..utils.compile_cache import enable_compile_cache
+from .train import _key_data, _wrap_key
 
 
 def build(args):
-    def mk_env(use_pallas: bool):
-        return answer_given_env(
-            n_tasks=args.n_tasks, h=args.size, w=args.size,
-            colors=args.colors, seed=args.seed,
-            episode_limit=args.episode_limit, setting=args.setting,
-            use_pallas=use_pallas)
-
-    # measured engine choice (VMEM megakernel at this geometry vs XLA):
-    # two short probe rollouts, cached per (table, batch)
-    import jax as _jax
-    if _jax.devices()[0].platform == "tpu":
-        from ..benchmarks.roofline import pick_engine
-        env = mk_env(pick_engine(mk_env, args.n_envs))
-    else:
-        env = mk_env(False)
+    env = answer_given_env(
+        n_tasks=args.n_tasks, h=args.size, w=args.size,
+        colors=args.colors, seed=args.seed,
+        episode_limit=args.episode_limit, setting=args.setting)
     policy = make_policy(
         h=args.size, w=args.size, colors=args.colors,
         n_layer=args.n_layer, n_head=args.n_head, n_embd=args.n_embd,
@@ -141,7 +131,7 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
 
-    enable_compile_cache(args.ckpt_dir)
+    enable_compile_cache()
     logger = MetricLogger(args.log_file)
     # provenance header so a committed log is interpretable later
     # (config, argv, git sha) — advisor round-3 finding
@@ -236,7 +226,6 @@ def main(argv=None):
             params, opt_state, batch, ktrain, agent, tx, pcfg, ent_coeff)
         stats = dict(stats)
         stats.update(extras)
-        stats["_barrier"] = stats["total_loss"] + 0.0
         return bs, params, opt_state, key, stats
 
     it_j = jax.jit(iteration)
@@ -278,9 +267,8 @@ def main(argv=None):
         bs, params, opt_state, key, stats = it_j(env, bs, params,
                                                  opt_state, key,
                                                  ent_schedule(i))
-        rate = thr.tick(args.n_envs * T, stats["_barrier"])
-        out = {k: float(v) for k, v in stats.items()
-               if not k.startswith("_")}
+        rate = thr.tick(args.n_envs * T, stats)
+        out = {k: float(v) for k, v in stats.items()}
         out["env_steps_per_s"] = rate
         if banks is not None:
             out["phase"] = phase

@@ -1,4 +1,4 @@
-"""TPU-native usage: 1024 lockstep envs under jit (no reference
+"""Batched usage: 1024 lockstep envs under jit (no reference
 counterpart -- this is the new engine's main surface)."""
 import jax, jax.numpy as jnp, numpy as np
 from arcle_tpu.envs import BatchedEnv

@@ -3,8 +3,9 @@ shape: per-phase success trajectories for the sequential vs
 color-equivariant arms.
 
 Usage:
-    python scripts/summarize_continual.py \
-        [docs/continual_sequential.jsonl docs/continual_coloreq.jsonl]
+    python scripts/summarize_continual.py <run log.jsonl> [...]
+
+Each log is one ``train_answer_given --continual`` run (one arm).
 """
 
 from __future__ import annotations
@@ -49,9 +50,9 @@ def phase_stats(rows, phase_iters=400, n_phases=5):
 
 
 def main(argv):
-    paths = argv[1:] or ["docs/continual_sequential.jsonl",
-                         "docs/continual_coloreq.jsonl"]
-    for path in paths:
+    if len(argv) < 2:
+        sys.exit(__doc__)
+    for path in argv[1:]:
         rows = load(path)
         print(f"\n== {path} ({len(rows)} iterations)")
         print(f"{'phase':>5} {'colors':>6} {'peak':>7} {'final-1/4':>10} "

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
-"""Summarize a GPT E-MAML run record (docs/gpt_emaml_run_r5.jsonl):
-iteration count, wall-clock, and the post-adaptation reward trend the
-round-4 verdict asks for (rising post-adaptation reward / solves).
+"""Summarize a GPT E-MAML run record (the JSONL log of
+``python -m arcle_tpu.training.train_gpt``): iteration count, wall-clock,
+and the post-adaptation reward trend (rising post-adaptation reward /
+solves).
 
-Usage: python scripts/summarize_emaml.py docs/gpt_emaml_run_r5.jsonl
+Usage: python scripts/summarize_emaml.py <run log.jsonl>
 """
 
 import json
@@ -59,5 +60,6 @@ def main(path):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1] if len(sys.argv) > 1 else
-         "docs/gpt_emaml_run_r5.jsonl")
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    main(sys.argv[1])

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
-"""BASELINE config-3 batch sweep (round-4 verdict weak #6): measure the
-ARC-27 + PointWrapper engine at 1024/2048/4096 envs on this v5e so the
->=1M steps/s @ v5p claim is extrapolation-backed by data rather than a
-caveat.  Prints one JSON line consumed into BASELINE.md.
+"""BASELINE config-3 batch sweep: the ARC-27 + PointWrapper engine at
+1024/2048/4096 envs on one GPU.  Prints one JSON line.
+
+Usage: python scripts/sweep_config3.py
 """
 
 import json
@@ -13,16 +13,13 @@ import tempfile
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from bench import bench_tpu, log  # noqa: E402
+from bench import bench_engine, log, require_gpu  # noqa: E402
+from arcle_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 
 
 def main():
-    import jax
-    cache = os.path.join(tempfile.gettempdir(),
-                         f"arcle_bench_cache_{os.getuid()}")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1)
+    enable_compile_cache()
+    require_gpu()
 
     from arcle_tpu.loaders.synthetic import write_corpus
     from arcle_tpu.loaders import ARCLoader
@@ -34,7 +31,7 @@ def main():
 
     out = {}
     for b in (1024, 2048, 4096):
-        rate = bench_tpu(b, 100, 2, table=arc_table(max_trial=-1),
+        rate = bench_engine(b, 100, 2, table=arc_table(max_trial=-1),
                          bank=bank, point_actions=True)
         out[f"arc_point_{b}env"] = round(rate)
         log(f"config3 B={b}: {rate:,.0f} steps/s")

@@ -30,6 +30,20 @@ def _bbox_sel(h, w, x1, y1, x2, y2):
 # ---------------------------------------------------------------------------
 # Environment semantics
 # ---------------------------------------------------------------------------
+def test_exact_ratio_matches_ieee_division():
+    """The integer-only quotient behind the rewards is the correctly
+    rounded float32 for every num <= den <= 900 (every reward a 30x30 grid
+    can produce), bit for bit."""
+    from arcle_tpu.ops.table import exact_ratio
+    den = np.repeat(np.arange(1, 901, dtype=np.int32), 901)
+    num = np.tile(np.arange(0, 901, dtype=np.int32), 900)
+    keep = num <= den
+    num, den = num[keep], den[keep]
+    got = np.asarray(jax.jit(exact_ratio)(num, den))
+    want = num.astype(np.float32) / den.astype(np.float32)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 @pytest.mark.slow
 def test_pixel_reward_and_match():
     env = answer_given_env(n_tasks=4, h=5, w=5, colors=10, seed=0,

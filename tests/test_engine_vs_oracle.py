@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from arcle_tpu.core.state import init_state, Action
 from arcle_tpu.ops import raw_table, arc_table, o2arc_table, step
 from arcle_tpu.oracle import OracleEnv
+from arcle_tpu.oracle.oracle_env import FAMILY_FIELDS, STATE_FIELDS
 
 from test_oracle_vs_reference import random_grid, random_selection
 
@@ -29,24 +30,7 @@ def jax_state_from(inp, out, max_trial=-1, reset_on_submit=False):
         max_trial=max_trial, reset_on_submit=int(reset_on_submit))
 
 
-FIELDS = [
-    ("trials_remain", lambda o: o["trials_remain"][0]),
-    ("terminated", lambda o: o["terminated"][0]),
-    ("input", lambda o: o["input"]),
-    ("input_dim", lambda o: o["input_dim"]),
-    ("grid", lambda o: o["grid"]),
-    ("grid_dim", lambda o: o["grid_dim"]),
-    ("selected", lambda o: o["selected"]),
-    ("clip", lambda o: o["clip"]),
-    ("clip_dim", lambda o: o["clip_dim"]),
-    ("active", lambda o: o["object_states"]["active"][0]),
-    ("object", lambda o: o["object_states"]["object"]),
-    ("object_sel", lambda o: o["object_states"]["object_sel"]),
-    ("object_dim", lambda o: o["object_states"]["object_dim"]),
-    ("object_pos", lambda o: o["object_states"]["object_pos"]),
-    ("background", lambda o: o["object_states"]["background"]),
-    ("rotation_parity", lambda o: o["object_states"]["rotation_parity"][0]),
-]
+FIELDS = STATE_FIELDS
 
 
 def assert_state_equal(js, orc_state, t, op, fields=FIELDS):
@@ -56,9 +40,8 @@ def assert_state_equal(js, orc_state, t, op, fields=FIELDS):
             err_msg=f"step {t} op {op} field {name}")
 
 
-CORE_FIELDS = [f for f in FIELDS if f[0] in (
-    "trials_remain", "terminated", "input", "input_dim", "grid", "grid_dim")]
-CLIP_FIELDS = CORE_FIELDS + [f for f in FIELDS if f[0] in ("clip", "clip_dim")]
+CORE_FIELDS = FAMILY_FIELDS["raw"]
+CLIP_FIELDS = FAMILY_FIELDS["arc"]
 
 
 def run_fuzz(family, table, seed, n_steps, fields, max_trial=3,

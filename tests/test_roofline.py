@@ -1,19 +1,40 @@
-"""Roofline accounting + measured engine auto-pick."""
+"""Roofline accounting: the peaks table and the per-step normalization."""
+
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from arcle_tpu.benchmarks import roofline
-from arcle_tpu.envs import BatchedEnv
-from arcle_tpu.loaders import SyntheticLoader
-from arcle_tpu.ops import o2arc_table, raw_table
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_device_peaks_known_kinds():
-    p = roofline.device_peaks()
+    dev = types.SimpleNamespace(device_kind=H100, platform="gpu")
+    p = roofline.device_peaks(dev)
     assert p["hbm_gbps"] > 0 and p["bf16_tflops"] > 0
-    assert "kind" in p
+    assert p["kind"] == H100 and p["source"]
+
+
+def test_h100_peaks_row():
+    """The data-sheet numbers of the SXM part (dense bf16, HBM3)."""
+    p = roofline.PEAKS[H100]
+    assert p["bf16_tflops"] == 989.0
+    assert p["hbm_gbps"] == 3350.0
+    assert "data sheet" in p["source"]
+
+
+@pytest.mark.parametrize(
+    "kind", ["cpu", "NVIDIA H200", "NVIDIA A100-SXM4-80GB"])
+def test_unknown_device_kind_raises(kind):
+    dev = types.SimpleNamespace(device_kind=kind, platform="x")
+    with pytest.raises(KeyError):
+        roofline.device_peaks(dev)
+    with pytest.raises(KeyError):
+        roofline.summarize(1e6, batch=10, steps=10, cost=None, kind=kind)
 
 
 def test_cost_from_compiled_counts_flops_and_bytes():
@@ -29,33 +50,12 @@ def test_cost_from_compiled_counts_flops_and_bytes():
     assert cost["bytes"] >= 128 * 128 * 4
 
 
-def test_pallas_step_bytes_model():
-    b_obj = roofline.pallas_step_bytes(o2arc_table(), 4096)
-    b_raw = roofline.pallas_step_bytes(raw_table(), 4096)
-    # object tables stream the two 900x900 bf16 permutation matrices
-    # (per 64-env block, normalized per env-step)
-    assert b_obj - b_raw == 2 * 900 * 900 * 2 * (4096 // 64) / 4096
-    # state traffic: ~15 grid-sized operands/results per env-step
-    assert 13 * 900 < b_raw < 18 * 900
-
-
 def test_summarize_normalizes_per_step():
     cost = {"flops": 1e9, "bytes": 2e9}
-    out = roofline.summarize(1e6, batch=1000, steps=100, cost=cost)
-    # 2e9 bytes / 1e5 env-steps = 2e4 B/step; at 1e6 steps/s = 20 GB/s
+    out = roofline.summarize(1e8, batch=1000, steps=100, cost=cost,
+                             kind=H100, card="NVIDIA H100 80GB HBM3, 700 W")
+    # 2e9 bytes / 1e5 env-steps = 2e4 B/step; at 1e8 steps/s = 2 TB/s
     assert out["xla_bytes_per_env_step"] == 2e4
-    peaks = roofline.device_peaks()
     np.testing.assert_allclose(
-        out["hbm_util_pct"], 100 * 2e10 / (peaks["hbm_gbps"] * 1e9),
-        rtol=1e-3)
-
-
-def test_pick_engine_cpu_is_xla():
-    """On CPU (and any non-64-divisible batch) the pick is always the
-    XLA path, computed without timing probes."""
-    def builder(use_pallas):
-        return BatchedEnv(table=o2arc_table(), use_pallas=use_pallas,
-                          bank=SyntheticLoader(4, seed=1).bank())
-
-    assert roofline.pick_engine(builder, 128) is False
-    assert roofline.pick_engine(builder, 100) is False
+        out["hbm_util_pct"], 100 * 2e12 / (3350.0 * 1e9), rtol=1e-3)
+    assert out["card"].endswith("700 W")
